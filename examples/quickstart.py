@@ -2,7 +2,7 @@
 """mpx quickstart: the full API surface on the vendored datasets.
 
 Run from the repo root: python examples/quickstart.py
-(CPU works; on a TPU host the mxu kernel runs on the MXU.)
+(CPU works; on a GPU host the mxu kernel runs through cuBLAS.)
 """
 
 import numpy as np

@@ -1,4 +1,4 @@
-"""mpx — a TPU-native matrix-profile (SCAMP) framework.
+"""mpx — an exact matrix-profile (SCAMP) framework in JAX.
 
 A ground-up JAX/XLA/Pallas re-design of the capabilities of the
 ``matrix-profile-hls`` FPGA reference (Vitis HLS SCAMP self-join engine):
@@ -7,25 +7,26 @@ compute the self-join matrix profile ``MP`` (z-normalized Euclidean distance
 of each length-``m`` subsequence to its nearest non-trivial neighbor) and the
 matrix profile index ``MPI``.
 
-Architecture (TPU-first, not a translation of the HLS dataflow design):
+Architecture (accelerator-first, not a translation of the HLS dataflow
+design):
 
 * the upper-triangular (n-m+1)^2 join is decomposed into independent
   (row-band x diagonal-chunk) *jobs*;
 * each job seeds its QT row exactly with the closed form
-  ``QT(r, c) = SDP(r, c) - m * mu[r] * mu[c]`` (a sliding-dot-product that
-  maps onto the MXU), then runs the SCAMP O(1) diagonal-update recurrence
-  over the band's rows on the VPU;
+  ``QT(r, c) = SDP(r, c) - m * mu[r] * mu[c]`` (a sliding-dot-product),
+  then runs the SCAMP O(1) diagonal-update recurrence over the band's
+  rows — or, in the default ``mxu`` kernel, computes the whole job tile
+  as one matmul of unit-normalized windows;
 * row/column argmax aggregates are merged on-device with max-merges
   (the analog of the reference host driver's ``UpdateAggregates``,
   include/host/HostSideComputation.hpp:72-90);
-* multi-chip scaling shards the job list over a ``jax.sharding.Mesh`` and
-  merges partial profiles with an ICI max/argmax allreduce (the analog of
+* multi-device scaling shards the job list over a ``jax.sharding.Mesh``
+  and merges partial profiles with a max/argmax allreduce (the analog of
   the reference's MP_KERNEL_REPL compute-unit replication).
 
 Double precision (the reference's flagship dtype) is supported through
 scoped JAX x64 tracing (:func:`mpx.dtypes.x64_scope`); the global x64 flag
-is never touched, so float32/Pallas paths stay free of i64 index
-arithmetic that the TPU compiler rejects.
+is never touched, so float32 paths stay free of i64 index arithmetic.
 """
 
 from __future__ import annotations

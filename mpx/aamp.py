@@ -5,7 +5,7 @@ z-normalized distances; for signals where amplitude/offset matter (e.g.
 already-detrended or physical-unit data) the community's standard
 alternative is the raw Euclidean profile (AAMP).
 
-TPU-first: with raw windows ``W_r`` and squared norms ``ssq``,
+Device-first: with raw windows ``W_r`` and squared norms ``ssq``,
 
     D^2(r, c) = ssq_r + ssq_c - 2 * (W_r . W_c)
 

@@ -7,8 +7,8 @@ independent contribution to the profile and the max-merge is
 associative, so running ANY subset of jobs yields a valid profile whose
 distances are an upper bound on the truth, converging monotonically to
 the exact profile as coverage -> 100% (the SCRIMP/PreSCRIMP insight,
-re-cast over the TPU job decomposition: sampling diagonal *chunks*
-instead of single diagonals keeps every dispatch MXU-shaped).
+re-cast over the device job decomposition: sampling diagonal *chunks*
+instead of single diagonals keeps every dispatch matmul-shaped).
 
 Job order:
 
@@ -123,7 +123,6 @@ def anytime_matrix_profile(
                 jnp.asarray(grid.r0[part]),
                 jnp.asarray(grid.k0[part]),
                 S=S, W=W, m=m, w=w, kernel=kernel, dtype=str(dt),
-                interpret=config.interpret,
                 tr=config.tile_rows, tc=config.tile_cols,
             )
             rows_g = merge_aggregates(rows_g, rows_b)

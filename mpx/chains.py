@@ -17,7 +17,7 @@ Definitions, over the left/right matrix profile index arrays IL / IR
 * the **all-chain set** ALLC partitions every window into maximal
   chains; its longest member is the *unanchored* chain.
 
-TPU-first split: all the O(n^2) work is the left/right profile itself,
+Device-first split: all the O(n^2) work is the left/right profile itself,
 which runs on the standard device tiers (``compute_matrix_profile(...,
 left_right=True)`` — hybrid-exact for float64, one-pass MXU otherwise;
 see mpx/driver.py).  Chain extraction is pure host index-chasing over

@@ -1,4 +1,4 @@
-"""pyscamp-compatible API, TPU-backed.
+"""pyscamp-compatible API, backed by mpx on any JAX device.
 
 The reference repository's own golden tooling is written against
 pyscamp (util/matrix_profile.py:1-17: ``import pyscamp as mp;
@@ -16,7 +16,7 @@ pyscamp               mpx tier
 ``selfjoin_knn``      :func:`mpx.compute_topk_profile`
 ``selfjoin_matrix``   :func:`mpx.distmatrix.pooled_matrix`
 ``abjoin_matrix``     :func:`mpx.distmatrix.pooled_matrix` (B set)
-``gpu_supported``     False — see :func:`tpu_supported`
+``gpu_supported``     True iff JAX sees a GPU
 ====================  =========================================
 
 Argument mapping and documented divergences:
@@ -25,10 +25,11 @@ Argument mapping and documented divergences:
   z-normalized distances via ``p = 1 - d^2 / (2m)``); default is the
   z-normalized Euclidean distance, like pyscamp.
 * ``precision`` maps 'single'/'mixed' -> float32 (mpx f32 sweeps always
-  run the MXU at HIGHEST precision, which is pyscamp's 'mixed' spirit)
+  run their matmuls at HIGHEST precision, which is pyscamp's 'mixed'
+  spirit)
   and 'double'/'ultra' -> the exact hybrid f64 tier.
 * ``threads`` / ``gpus`` are accepted and ignored — device placement is
-  the runtime's job here (one TPU chip or a jax mesh), not a per-call
+  the runtime's job here (one device or a jax mesh), not a per-call
   knob.  ``mp_filename``-style file outputs are not reproduced; use
   ``mpx compute -o``.
 * ``selfjoin_knn`` / ``abjoin_knn`` return a ``(count, 3)`` float array
@@ -72,17 +73,12 @@ def _to_pearson(dist, m: int) -> np.ndarray:
 
 
 def gpu_supported() -> bool:
-    """pyscamp reports CUDA availability; mpx has no CUDA path."""
-    return False
-
-
-def tpu_supported() -> bool:
-    """True iff a TPU backend is reachable (mpx extension)."""
+    """pyscamp reports CUDA availability: True iff JAX sees a GPU."""
     import jax
 
     try:
-        return any(d.platform == "tpu" for d in jax.devices())
-    except Exception:
+        return any(d.platform == "gpu" for d in jax.devices())
+    except RuntimeError:
         return False
 
 

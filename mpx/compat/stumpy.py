@@ -1,4 +1,4 @@
-"""STUMPY-compatible API, TPU-backed.
+"""STUMPY-compatible API, backed by mpx on any JAX device.
 
 STUMPY is the most widely used open-source matrix-profile library; a
 user of the reference (or of SCAMP) evaluating mpx most likely also
@@ -141,7 +141,7 @@ def gpu_stump(T_A, m: int, T_B=None, ignore_trivial: bool = True,
               device_id: int = 0, normalize: bool = True, p: float = 2.0,
               k: int = 1):
     """stumpy.gpu_stump: same result as :func:`stump` on whatever
-    accelerator the jax backend provides (TPU here); ``device_id`` is
+    accelerator the jax backend provides; ``device_id`` is
     accepted and ignored."""
     del device_id
     return stump(T_A, m, T_B=T_B, ignore_trivial=ignore_trivial,

@@ -7,13 +7,16 @@ dataclass whose shape-like fields become jit static arguments:
 
 * ``m``          — subsequence length (MP_SIZE_M)
 * ``dtype``      — compute dtype (MP_DATA_TYPE: double/float)
-* ``kernel``     — 'xla' | 'pallas' | 'auto' (MP_KERNEL: Vanilla/Tiled)
+* ``kernel``     — 'auto' | 'mxu' | 'xla' | 'hybrid' (MP_KERNEL analog)
 * ``chunk``      — diagonals per job, the host-chunk analog (MP_SIZE_W)
 * ``band``       — rows per job; new in mpx: QT is re-seeded exactly at
   every band start (closed form on the MXU), which removes the global
   row-serial dependence and makes every (band x chunk) job independent —
   the enabler for one-compile scheduling, sharding, and checkpointing.
-* ``tile_rows`` / ``tile_cols`` — Pallas on-chip tile (MP_SIZE_T analog)
+* ``tile_rows`` / ``tile_cols`` — tile of the band geometry (MP_SIZE_T
+  analog).  No kernel reads them any more: they only constrain ``band``
+  / ``chunk`` (multiples of the tile) and the rounding in ``shrink_to``;
+  the tiers pass them on as ``tr``/``tc`` into ``BandGeometry``
 * ``num_shards`` — device count for the sharded path (MP_KERNEL_REPL)
 """
 
@@ -25,15 +28,8 @@ from typing import Optional
 import numpy as np
 
 from mpx.dtypes import canonical_dtype
+from mpx.kernels import check_kernel
 from mpx.types import JobGrid
-
-# 'mxu_fused' (Pallas matmul + in-VMEM argmax epilogue) is selectable
-# but never chosen by 'auto': Mosaic's f32 matmul currently runs ~4x
-# below XLA's on this stack, so the fused epilogue's HBM savings don't
-# pay for the slower MXU path.  Kept selectable for hardware where the
-# Mosaic matmul closes the gap (see ROADMAP.md).
-_KERNELS = ("auto", "mxu", "xla", "pallas", "hybrid", "mxu_fused")
-
 
 @dataclasses.dataclass(frozen=True)
 class MatrixProfileConfig:
@@ -52,16 +48,13 @@ class MatrixProfileConfig:
     # float32 compute, 'ap32'/'ap64' -> float64); see mpx/io/apfixed.py.
     input_quant: Optional[str] = None
     # Multi-chip input strategy: 'jobs' replicates the O(n) statistics
-    # and shards the job list (fastest to n ~ 16M f32); 'ring' shards
-    # the inputs themselves and rotates column blocks over ICI
-    # (pod-scale memory: O(n / num_shards) per device).
+    # and shards the job list; 'ring' shards the inputs themselves and
+    # rotates column blocks between devices (O(n / num_shards) memory
+    # per device).
     shard_mode: str = "jobs"
-    # Interpret-mode Pallas (the sw_emu analog) for debugging off-TPU.
-    interpret: bool = False
-    # Jobs per device dispatch.  None = automatic: sized so one dispatch
-    # stays under ~60s on the slowest kernel tier, because multi-minute
-    # single executions can trip device/runtime watchdogs (observed on
-    # TPU with straight-f64 sweeps).  0 disables grouping entirely.
+    # Jobs per device dispatch: a positive count splits the job scan
+    # into groups of that many jobs (merged on device).  None or 0 runs
+    # every job in one dispatch.
     dispatch_group: Optional[int] = None
 
     def __post_init__(self):
@@ -85,8 +78,7 @@ class MatrixProfileConfig:
 
             get_format(self.input_quant)  # raises on unknown
         canonical_dtype(self.dtype)  # raises on unsupported
-        if self.kernel not in _KERNELS:
-            raise ValueError(f"kernel must be one of {_KERNELS}, got {self.kernel!r}")
+        check_kernel(self.kernel)
         if self.shard_mode not in ("jobs", "ring"):
             raise ValueError(
                 f"shard_mode must be 'jobs' or 'ring', got {self.shard_mode!r}"

@@ -7,10 +7,10 @@ it is an anomaly the moment it arrives — no future data needed, no
 retroactive score changes (the left profile is append-stable), which is
 exactly the contract a production monitor needs.
 
-TPU-first design: DAMP's CPU contribution is backward-pruned search to
-dodge the O(n^2) cost; mpx instead makes the exact computation cheap —
-the batch scorer is the standard device left/right tier (one MXU job
-sweep, ~5e10 pairs/s on a v5e chip), and the online scorer is the
+Design: DAMP's CPU contribution is backward-pruned search to dodge the
+O(n^2) cost; mpx instead makes the exact computation cheap — the batch
+scorer is the standard device left/right tier (one matmul job sweep),
+and the online scorer is the
 streaming tier's O(k*n) append rectangle in ``mode='left'``
 (mpx/streaming.py: new rows sweep earlier columns only; no column
 merge, so emitted scores are final).  Each append fetches only its own

@@ -7,11 +7,10 @@ cell holds the MAXIMUM Pearson correlation (equivalently the minimum
 z-normalized distance) over all subsequence pairs that pool into it —
 the standard way to *visualize* the whole join as a heatmap at any n.
 
-TPU-first: the (S x S) correlation tile is the SAME unit-window MXU
-matmul every other tier uses (kernels/mxu._job_correlations); only the
-epilogue changes.  Pooling exploits that global pool indices are sorted
-along each tile axis, so it never needs segment_max/scatter (pathological
-on TPU):
+The (S x S) correlation tile is the SAME unit-window matmul every other
+tier uses (kernels/mxu._job_correlations); only the epilogue changes.
+Pooling exploits that global pool indices are sorted along each tile
+axis, so it never needs segment_max/scatter:
 
 * ``pool < S``  — shift-buffer reshape: the tile is placed at offset
   ``o % pool`` inside a ``K*pool``-long buffer and max-reduced by a
@@ -174,7 +173,6 @@ def pooled_matrix(
     ph = -(-w // mheight)
     pw = -(-wc // mwidth)
 
-    from mpx.driver import _auto_dispatch_group
     from mpx.ops.precompute import precompute_statistics
 
     if B is None:
@@ -188,7 +186,7 @@ def pooled_matrix(
         r0s, c0s = rr.ravel(), cc.ravel()
         excl, mirror = 0, False
 
-    group = _auto_dispatch_group(config, "mxu", np.dtype(np.float32), S, S)
+    group = config.dispatch_group
     njobs = r0s.shape[0]
     if not group or group >= njobs:
         group = njobs

@@ -8,8 +8,8 @@ to ``value = -1e12`` / ``index = -1`` so that any genuine correlation
 output as the reference's sentinel values.
 
 The reference supports ``double``/``float`` plus four fixed-point
-ap_fixed compute dtypes (CMakeLists.txt:71).  On TPU, float32 runs
-native on the VPU/MXU and float64 is XLA-emulated; the ap_fixed tiers
+ap_fixed compute dtypes (CMakeLists.txt:71).  float32 and float64 both
+run natively on the GPU (float64 at a lower matmul rate); the ap_fixed tiers
 map to input quantization + the narrowest exact float pipeline
 (mpx/io/apfixed.py, resolved in MatrixProfileConfig — by the time a
 dtype reaches this module it is one of the two floats).  bfloat16 is
@@ -77,10 +77,9 @@ def x64_scope(enable: bool = True):
     """Scoped JAX x64 mode.
 
     float64 (the reference's flagship dtype) requires x64 tracing, but a
-    globally-enabled x64 poisons Pallas TPU lowering with i64 index
-    arithmetic that Mosaic rejects.  All float64 jit tracing in mpx
-    therefore happens inside this scope; float32/Pallas paths run with
-    x64 off.
+    globally-enabled x64 would turn every index in the float32 paths
+    into i64.  All float64 jit tracing in mpx therefore happens inside
+    this scope; float32 paths run with x64 off.
     """
     import jax
 

@@ -8,9 +8,9 @@ every append.  (Reference scope note: matrix-profile-hls computes raw
 profiles only — host/MatrixProfileHost.cpp:54-160 is one batch run —
 segmentation is an mpx beyond-parity tier, like motifs/discords.)
 
-TPU-first design: the expensive part of a FLOSS step is the rectangle
+Design: the expensive part of a FLOSS step is the rectangle
 sweep of the new subsequences against the window, and that is exactly
-the MXU windows-matmul `StreamingMatrixProfile` already runs on device —
+the windows-matmul `StreamingMatrixProfile` already runs on device —
 this module adds only the two O(window) host steps (analytic
 one-directional CAC + valley extraction).  Two properties make the
 streaming state EXACT (not the usual approximation caveat):

@@ -15,7 +15,7 @@ the "safe" integral range [-2^(I-1), 2^(I-1)-1]
 (include/host/FileIO.hpp:50-103 — the check deliberately uses integral
 bounds, not the true ap extremes, "causes rounding errors").
 
-TPU analog: there is no fixed-point MXU datapath, so mpx quantizes at
+mpx analog: there is no fixed-point matmul datapath, so mpx quantizes at
 INPUT — exactly the reference's FileIO cast, bit-for-bit — and then
 computes on the quantized values through the standard exact tiers
 (ap16/ap24 -> float32, ap32/ap64 -> float64/hybrid; see

@@ -3,77 +3,69 @@
 Two implementations of the same band-sweep contract (see
 :mod:`mpx.kernels.common`):
 
-* ``mxu``    — the correlation tile as a unit-normalized-windows matmul;
-  puts the O(n^2 m) FLOPs on the MXU where TPU throughput lives.  The
-  default on every backend (it is also the best *CPU* kernel: BLAS).
-* ``xla``    — pure jnp/lax.scan SCAMP recurrence; the behavioral analog
+* ``mxu`` — the correlation tile as a unit-normalized-windows matmul;
+  puts the O(n^2 m) FLOPs on the device's matrix units (cuBLAS on the
+  GPU, BLAS on the CPU).  The default on every backend.
+* ``xla`` — pure jnp/lax.scan SCAMP recurrence; the behavioral analog
   of the reference's Vanilla kernel (kernel/MatrixProfileKernelVanilla.cpp);
   O(1) work per pair, preferable for very large m.
-* ``pallas`` — hand-tiled Pallas TPU kernel, the analog of the Tiled
-  systolic kernel (kernel/MatrixProfileKernelTiled.cpp) re-designed for
-  the VPU/VMEM instead of a PE chain.
 
-``resolve_kernel`` implements the 'auto' policy: the matmul kernel wins
-whenever 2m FLOPs/pair on the MXU beat ~10 VPU ops/pair — i.e. for every
-m the reference supports; the recurrence kernels take over for huge m.
+``resolve_kernel`` implements the 'auto' policy: the matmul kernel for
+every m the reference supports, the hybrid tier for float64 and for
+large float32 self-joins, and the recurrence for f64 beyond MXU_MAX_M.
 """
 
 from __future__ import annotations
 
-import jax
 import numpy as np
 
 from mpx.kernels.common import BandOut, band_geometry
 from mpx.kernels.xla import sweep_band_xla
 
-# Hybrid-tier eligibility ceiling: the hybrid's f32 MXU sweeps pay an
+# Hybrid-tier eligibility ceiling: the hybrid's f32 matmul sweeps pay an
 # O(m)-HLO compile cost (minutes beyond m~4096, amortized by the
 # persistent cache); past it the strict f64 recurrence takes over.
 MXU_MAX_M = 4096
 
-# Measured v5e crossover sweep (n=65536 f32, round 2 — see ROADMAP.md):
-#   m      mxu       pallas    xla
-#   512    1.83e10   8.2e8     -
-#   1024   1.08e10   4.2e8     -
-#   2048   6.0e9     1.9e8     9.9e7
-#   4096   3.3e9     -         -
-#   8192   1.7e9     -         -
-# The matmul kernel dominates at EVERY m (its rate halves per m
-# doubling but starts ~20x ahead; the recurrence kernels are VPU/
-# scan-bound).  There is no f32 crossover: auto is always 'mxu'.
-
-
 # Minimum profile width for routing float32 'auto' through the hybrid
-# tier: the hybrid's two-pass sweeps beat the one-pass materialize-and-
-# argmax kernel by ~1.2-1.7x asymptotically (pass A writes no P tile,
-# pass B touches ~1 row per job), but carry ~1-2s of fixed host work
-# (f64 stats + rescore) — a wash at w ~ 2^19, a clear win beyond.
-# Overridable for tests / other hardware.
-import os as _os
+# tier: its two-pass sweeps write no P tile in pass A and touch ~1 row
+# per job in pass B, but carry fixed host work (f64 stats + rescore).
+# The crossover against the one-pass tile is not yet measured on the
+# GPU; 2^19 is the value the tier was introduced with.
+HYBRID32_MIN_W = 1 << 19
 
-HYBRID32_MIN_W = int(_os.environ.get("MPX_HYBRID32_MIN_W", 1 << 19))
+# Sweep kernels a caller may name (besides 'auto' and 'hybrid').
+SWEEP_KERNELS = ("mxu", "xla")
+
+
+def check_kernel(kernel: str, allowed=("auto", "hybrid") + SWEEP_KERNELS):
+    """Raise a ValueError naming the valid choices for an unknown (or
+    removed) kernel name."""
+    if kernel not in allowed:
+        raise ValueError(
+            f"unknown kernel {kernel!r}; choose one of {', '.join(allowed)}"
+        )
 
 
 def resolve_kernel(
     kernel: str,
     dtype,
     m: int = 0,
-    interpret: bool = False,
     allow_hybrid: bool = False,
     w: int = 0,
 ) -> str:
+    check_kernel(kernel)
     if kernel != "auto":
         return kernel
     if np.dtype(dtype) == np.dtype(np.float64):
         if allow_hybrid and (not m or m <= MXU_MAX_M):
-            # float64 is XLA-emulated on TPU (~100x below f32); the
-            # hybrid tier (f32 MXU sweeps + exact host-f64 rescoring,
-            # mpx.hybrid) computes the identical exact profile orders of
-            # magnitude faster.
+            # The hybrid tier (f32 matmul sweeps + exact host-f64
+            # rescoring, mpx.hybrid) computes the identical exact
+            # profile.  Whether native f64 matmuls beat it on the GPU is
+            # an open measurement (ROADMAP speed item 3).
             return "hybrid"
         if m and m > MXU_MAX_M:
-            # emulated-f64 matmul is ~0.01 Tflop/s: at large m the O(1)
-            # recurrence wins for the strict tier
+            # at large m the O(1) recurrence wins for the strict tier
             return "xla"
         return "mxu"
     if (
@@ -82,29 +74,22 @@ def resolve_kernel(
         and (not m or m <= MXU_MAX_M)
         and w >= HYBRID32_MIN_W
     ):
-        # Large float32 self-joins: the hybrid tier is both faster than
-        # the one-pass argmax kernel AND exact (f64-true values cast to
-        # f32) — measured 9.8s vs 11.8s at the n=2^20 showcase.
+        # Large float32 self-joins: the hybrid tier is exact (f64-true
+        # values cast to f32) and avoids materializing every P tile.
         return "hybrid"
     return "mxu"
 
 
 def get_sweep_fn(kernel: str):
+    check_kernel(kernel, SWEEP_KERNELS)
     if kernel == "xla":
         return sweep_band_xla
-    if kernel == "mxu":
-        from mpx.kernels.mxu import sweep_band_mxu
+    from mpx.kernels.mxu import sweep_band_mxu
 
-        return sweep_band_mxu
-    if kernel == "mxu_fused":
-        from mpx.kernels.mxu_fused import sweep_band_mxu_fused
-
-        return sweep_band_mxu_fused
-    if kernel == "pallas":
-        from mpx.kernels.pallas_tpu import sweep_band_pallas
-
-        return sweep_band_pallas
-    raise ValueError(f"unknown kernel {kernel!r}")
+    return sweep_band_mxu
 
 
-__all__ = ["BandOut", "band_geometry", "resolve_kernel", "get_sweep_fn", "sweep_band_xla"]
+__all__ = [
+    "BandOut", "band_geometry", "check_kernel", "resolve_kernel",
+    "get_sweep_fn", "sweep_band_xla", "SWEEP_KERNELS",
+]

@@ -54,8 +54,8 @@ class BandGeometry(NamedTuple):
     m: int      # subsequence length
     w: int      # row-axis profile width (n - m + 1 of the query series)
     excl: int   # exclusion zone m // 4 (negative: none — AB-joins)
-    tr: int     # pallas tile rows (MP_SIZE_T analog); xla backend ignores
-    tc: int     # pallas tile diagonals
+    tr: int     # tile rows (MP_SIZE_T analog); no kernel reads it
+    tc: int     # tile diagonals; no kernel reads it
     wc: int     # column-axis profile width (== w for self-joins)
 
 

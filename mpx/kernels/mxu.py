@@ -1,18 +1,18 @@
-"""MXU band sweep: the correlation block as a windows matmul.
+"""Matmul band sweep (kernel "mxu"): the correlation block as a windows matmul.
 
 The Pearson correlation of two z-normalized subsequences is a dot
 product: with ``u_i = (T[i:i+m] - mu_i) * inv_i`` (unit-normalized
 windows), ``P(r, c) = u_r . u_c``.  A whole (S x W) tile of the join is
-therefore ONE matmul ``U_r @ U_c^T`` on the MXU — where a TPU's FLOPs
-actually live.  Compared to the SCAMP O(1) diagonal recurrence this does
-``2m`` FLOPs per pair instead of ~10, but the MXU:VPU throughput ratio
-(~100x at f32) makes it the fastest kernel for the reference's m range
-(the recurrence kernels remain for very large m and for the protocol
-analogy with the HLS design).
+therefore ONE matmul ``U_r @ U_c^T`` (a library GEMM: cuBLAS on the GPU,
+BLAS on the CPU).  Compared to the SCAMP O(1) diagonal recurrence this
+does ``2m`` FLOPs per pair instead of ~10, but a GEMM runs far closer to
+the device's peak than an elementwise recurrence (the recurrence kernel
+remains for very large m and for the protocol analogy with the HLS
+design).
 
 No recurrence also means no seeding, better numerics (errors are
 ~sqrt(m) ulps of an O(1) result — no QT drift over rows), and pure-XLA
-portability (CPU/TPU, f32/f64).
+portability (any backend, f32/f64).
 
 Same job contract as the other backends (BandOut), except the job is the
 *rectangle* rows [r0, r0+S) x columns [c0, c0+W) rather than a diagonal
@@ -21,7 +21,6 @@ rhombus, so the column output covers (W,) at offset c0.
 
 from __future__ import annotations
 
-import os
 from typing import NamedTuple
 
 import jax
@@ -32,12 +31,10 @@ from mpx.dtypes import AGGREGATE_INIT, INDEX_INIT
 from mpx.kernels.common import BandGeometry, BandOut
 from mpx.types import Aggregates, Stats
 
-# f32 matmul precision on TPU: HIGHEST = 6-pass bf16 (full f32 products),
-# HIGH = 3-pass (f32-grade for this use; ~2x faster).  Overridable for
-# experiments via MPX_MXU_PRECISION.
-_PRECISION = getattr(
-    jax.lax.Precision, os.environ.get("MPX_MXU_PRECISION", "HIGHEST")
-)
+# f32 matmul precision: HIGHEST is true fp32.  On the GPU, DEFAULT and
+# HIGH run in TF32 (10 mantissa bits), far outside the distance
+# tolerance; tests/test_precision_guard.py enforces this.
+_PRECISION = jax.lax.Precision.HIGHEST
 
 
 def _windows(Tseg: jax.Array, mu, inv, count: int, m: int):
@@ -70,14 +67,14 @@ def _panel(stats: Stats, o, count: int, m: int):
 def _job_correlations(stats: Stats, r0, c0, geom: BandGeometry, dt,
                       stats_c: Stats | None = None, precision=None,
                       rg=0, cg=0, two_sided: bool = False):
-    """The shared (S x W) correlation tile: unit-window panels -> MXU
+    """The shared (S x W) correlation tile: unit-window panels
     matmul -> validity mask.  Returns (P, valid, rows, cols).
 
     ``stats_c`` selects a different statistics set for the column axis
     (AB-joins: rows from A, columns from B; geom.excl < 0 and geom.wc
     carry the AB semantics).  Default: self-join.  ``precision``
-    overrides the module default (the hybrid tier sweeps at HIGH with a
-    correspondingly inflated margin; its rescoring is exact either way).
+    overrides the module default (the hybrid's opt-in cascade sweeps
+    with bf16 operands under a correspondingly wider bound).
 
     ``rg``/``cg`` are *global* index offsets added on top of the local
     slice offsets ``r0``/``c0`` (sharded-input tiers slice device-local
@@ -90,8 +87,6 @@ def _job_correlations(stats: Stats, r0, c0, geom: BandGeometry, dt,
     Ur, fin_r = _panel(stats, r0, S, m)
     Uc, fin_c = _panel(stats if stats_c is None else stats_c, c0, W, m)
 
-    # HIGHEST precision: the TPU default would multiply f32 in bfloat16,
-    # far outside the distance tolerance.
     P = jax.lax.dot_general(
         Ur,
         Uc,
@@ -128,13 +123,8 @@ def sweep_band_mxu(stats: Stats, r0, k0, geom: BandGeometry, dtype,
     Pm = jnp.where(valid, P, init_v)
 
     # max + first-occurrence index via an iota-min over the tie mask.
-    # XLA fuses the mask/eq/where into the reduction reads; this measures
-    # ~40% faster end-to-end than jnp.argmax + gather on TPU (argmax
-    # lowers poorly along the minor axis).  Tie-break = smallest index =
-    # argmax's first-occurrence semantics.  (A hand-tiled scan epilogue
-    # that folds every reduction into one read of P was measured NOT
-    # faster — XLA's multi-output fusion already shares the reads — and
-    # compiles far slower, so it was dropped.)
+    # XLA fuses the mask/eq/where into the reduction reads.  Tie-break =
+    # smallest index = argmax's first-occurrence semantics.
     big = np.int32(2**30)
     row_v = jnp.max(Pm, axis=1)
     ri = jnp.min(jnp.where(Pm == row_v[:, None], cols, big), axis=1)
@@ -212,19 +202,19 @@ def _suspect_reduce(mask, idx, axis) -> SuspectWindow:
 
 def _dense_merge_cols(idx, win: SuspectWindow, F: int, L: int) -> SuspectWindow:
     """Scatter a gathered (F,) suspect summary back to a dense (L,)
-    window (init elsewhere) via a one-hot matmul — MXU-friendly, exact
-    because slot indices are unique and every encoded integer is < 2^24.
+    window (init elsewhere) via a one-hot matmul — exact because slot
+    indices are unique and every encoded integer is < 2^24.
 
     Index fields are shifted by +1 so 0 means "missing": the max-merged
     fields' init is already -1 (-> 0), the min-merged fields' init
     (2^30, not f32-exact) is mapped to 0 explicitly.
 
     HIGHEST precision is REQUIRED on every index-carrying one-hot
-    matmul in this module: TPU DEFAULT is a one-pass bf16 matmul whose
-    8 mantissa bits silently round integers >= 2^9 to multiples of
-    their magnitude/2^8 — encoded suspect indices past the first few
-    hundred would come back corrupted (observed at n=16384: the last
-    band's capture slots quantized to multiples of 64)."""
+    matmul in this module: a reduced-precision matmul (TF32 keeps 10
+    mantissa bits, bf16 8) silently rounds integers past 2^11 (2^9) —
+    encoded suspect indices would come back corrupted (once observed
+    with bf16 at n=16384: the last band's capture slots quantized to
+    multiples of 64)."""
     K = SUSPECT_K
     enc_mn = jnp.where(win.mn == SUSPECT_MIN_INIT, 0, win.mn + 1)
     enc_mx = win.mx + 1  # SUSPECT_MAX_INIT == -1 -> 0
@@ -248,11 +238,11 @@ def _dense_merge_cols(idx, win: SuspectWindow, F: int, L: int) -> SuspectWindow:
 def _flagged_indices(flags, F: int, L: int):
     """Indices of the first F set flags, ascending, padded with L —
     the contract of ``jnp.nonzero(size=F, fill_value=L)``, which lowers
-    to a minor-axis sort on TPU (~0.2 ms at L=16K, the dominant cost of
-    a sparse pass-B job).  This cumsum + one-hot matmul formulation is
-    ~10x cheaper: each flagged element knows its output slot (prefix
-    count), so a (L, F) slot one-hot contracted with the index iota
-    yields the compacted indices exactly (values < 2^24 are f32-exact)."""
+    to a sort.  This cumsum + one-hot matmul formulation avoids it: each
+    flagged element knows its output slot (prefix count), so a (L, F)
+    slot one-hot contracted with the index iota yields the compacted
+    indices exactly (values < 2^24 are f32-exact).  Whether a gather or
+    nonzero is cheaper on the GPU is open (ROADMAP)."""
     pos = jnp.cumsum(flags.astype(jnp.int32)) - 1
     pos = jnp.where(flags, pos, -1)
     onehot = pos[:, None] == jnp.arange(F, dtype=jnp.int32)[None, :]
@@ -270,16 +260,16 @@ def _flagged_indices(flags, F: int, L: int):
 
 def _onehot_rows(idx, U, F: int, L: int):
     """Compact rows ``U[idx]`` (idx (F,) int32 in [0, L], L = padded)
-    via a one-hot matmul: exact (each output sums one row), and cheaper
-    on TPU than a dynamic row gather.  Out-of-range slots yield zeros."""
+    via a one-hot matmul: exact (each output sums one row) at HIGHEST.
+    Out-of-range slots yield zeros."""
     onehot = (idx[:, None] == jnp.arange(L, dtype=jnp.int32)[None, :]).astype(
         U.dtype
     )
     return jax.lax.dot_general(
         onehot, U, (((1,), (0,)), ((), ())),
         preferred_element_type=U.dtype,
-        # HIGHEST: TPU DEFAULT would bf16-round the copied panel values
-        # (2^-8 relative), blowing the sweep's margin error budget
+        # HIGHEST: a TF32 matmul would round the copied panel values
+        # (2^-11 relative), blowing the sweep's margin error budget
         precision=jax.lax.Precision.HIGHEST,
     )
 
@@ -338,8 +328,8 @@ def sweep_band_suspects_sparse(
 
     # Flagged operand panels (F, m), compacted from the LOCAL job
     # panels by a one-hot matmul — each output row sums exactly one
-    # panel row (f32-exact), and small local matmuls beat row gathers
-    # from the ~1M-row windows table on TPU.  Padded slots (idx = S/W)
+    # panel row (f32-exact) — instead of row gathers from the ~1M-row
+    # windows table.  Padded slots (idx = S/W)
     # compact to zero rows; the fin masks already exclude them.
     Uf_r = _onehot_rows(idx_r, Ur, F, S)
     Uf_c = _onehot_rows(idx_c, Uc, F, W)
@@ -506,7 +496,7 @@ def _scatter_dense_max(idx, vals, F: int, L: int):
     D = jax.lax.dot_general(
         onehot, VI, (((0,), (0,)), ((), ())),
         preferred_element_type=jnp.float32,
-        # HIGHEST: TPU DEFAULT would bf16-round the scattered maxima
+        # HIGHEST: a TF32 matmul would round the scattered maxima
         precision=jax.lax.Precision.HIGHEST,
     )  # (L, 2)
     return jnp.where(D[:, 1] > 0, D[:, 0], jnp.float32(AGGREGATE_INIT))

@@ -1,12 +1,13 @@
 """Pure-XLA band sweep (lax.scan over rows).
 
-The portable kernel backend: runs on CPU/GPU/TPU, supports float64, and is
+The portable kernel backend: runs on any backend, supports float64, and is
 used as the reference-protocol analog of the Vanilla HLS kernel
 (kernel/MatrixProfileKernelVanilla.cpp:57-106).  Each scan step processes
 one row of the band against all W diagonals as full-width vector ops — the
-direct translation of the II=1 inner loop into VPU-width SIMD, with the
-8x8 TreeReduce dependency-breaking machinery replaced by plain jnp
-reductions (an FPGA-II artifact that has no TPU equivalent; SURVEY §2).
+direct translation of the II=1 inner loop into vector-width SIMD, with
+the 8x8 TreeReduce dependency-breaking machinery replaced by plain jnp
+reductions (an FPGA-II artifact with no accelerator equivalent; SURVEY
+§2).
 """
 
 from __future__ import annotations

@@ -20,7 +20,7 @@ already has, in two stages:
    level up.
 
 This trades MERLIN's adaptive-threshold early-abandon heuristics for
-TPU-shaped brute force: the survey is one MXU sweep regardless of how
+accelerator-shaped brute force: the survey is one matmul sweep regardless of how
 many lengths are asked for, and the refine stage touches only the
 candidate band.  Degenerate (zero-variance) windows and pad tails never
 become candidates (they carry no valid neighbor).

@@ -7,8 +7,8 @@ windows minimizing the **extent** — the largest pairwise z-normalized
 distance within the set.  The elbow curve of extents over k reveals how
 often a motif truly repeats.
 
-TPU-first split: all O(n^2) similarity work runs on the device top-k
-tier (mpx/topk.py — MXU sweeps; exact-f64 hybrid rescoring for the
+Device-first split: all O(n^2) similarity work runs on the device top-k
+tier (mpx/topk.py — matmul sweeps; exact-f64 hybrid rescoring for the
 double dtype), which yields every window's nearest-neighbor list.  The
 host then does the O(candidates * k^2) combinatorial part of the paper's
 approximate algorithm: rank seeds by their (k-1)-th neighbor distance (a

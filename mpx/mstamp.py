@@ -8,16 +8,16 @@ are sorted across dimensions, and the k-dimensional distance is the mean
 of the k smallest — giving d stacked profiles ``PMP[k-1]`` (the best
 k-dimensional motif ends at ``argmin(PMP[k-1])``).
 
-TPU-first design
-----------------
+Design
+------
 * The d per-dimension correlation tiles of a (S x W) job are ONE batched
-  MXU matmul over stacked unit-window panels: ``P[t] = U_r[t] @ U_c[t]^T``
+  matmul over stacked unit-window panels: ``P[t] = U_r[t] @ U_c[t]^T``
   (einsum ``dsm,dwm->dsw``) — the batch dimension rides the MXU schedule
   for free, so the sweep costs ~d x the 1-D mxu kernel.
 * The cross-dimension sort runs over the MAJOR axis of the (d, S, W)
   block (d is small: 2..64): XLA lowers it to a d-lane compare-exchange
   network over fully vectorized (S, W) lanes — never a minor-axis sort
-  (pathological on TPU; see mpx/kernels/mxu.py compaction notes).
+  (see mpx/kernels/mxu.py compaction notes).
 * Per-k aggregation reuses the 1-D epilogue shape: min + iota-min index
   tie-break, min-merged into carried (d, L) profile arrays inside one
   ``lax.scan`` over the job grid (no host round trips).

@@ -1,6 +1,6 @@
 // Native host-side library.
 //
-// The TPU framework's counterpart to the reference's host-side C++
+// mpx's counterpart to the reference's host-side C++
 // (include/host/HostSideComputation.hpp, test/include/MatrixProfileReference.hpp):
 //  * mpx_precompute      — exact float64 statistics in one pass (the
 //    PreComputeStatistics analog, vectorizable O(n*m));

@@ -194,9 +194,9 @@ def sliding_dot_product(q: jax.Array, T: jax.Array) -> jax.Array:
     m = q.shape[0]
     lhs = T[None, None, :]
     rhs = q[None, None, :]
-    # Precision.HIGHEST: the TPU default multiplies f32 in bfloat16, and
-    # the seed's later cancellation (SDP - m*mu_r*mu_c) amplifies that
-    # into garbage QT values.
+    # Precision.HIGHEST: the GPU default multiplies f32 in TF32, and the
+    # seed's later cancellation (SDP - m*mu_r*mu_c) amplifies that into
+    # garbage QT values.
     out = jax.lax.conv_general_dilated(
         lhs,
         rhs,
@@ -232,11 +232,10 @@ def precompute_statistics(
     * ``'native'`` — the C++ single-pass kernel (exact reference
       semantics, OpenMP), then one O(n) host->device transfer;
     * ``'numpy'``  — vectorized host float64;
-    * ``'jax'``    — jitted on-device float64 (x64-scoped tracing;
-      float64 is XLA-emulated on TPU);
+    * ``'jax'``    — jitted on-device float64 (x64-scoped tracing);
     * ``'auto'``   — native if the toolchain built, else numpy.  The
       statistics are O(n) next to the O(n^2) sweep, so the host paths
-      cost one small transfer and avoid slow on-device f64 emulation.
+      cost one small transfer.
 
     ``matmul_only=True`` stages just the windows-matmul operands
     (T, mu, inv) and zero-fills df/dg/qt0 on device — the recurrence

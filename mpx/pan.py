@@ -6,8 +6,8 @@ knob); real exploratory use rarely knows m in advance.  The pan profile
 window sizes and normalizes them onto a comparable scale, so motif
 structure at ANY length shows up in one (len(ms) x w) surface.
 
-TPU-first: every row is one full run of the fastest available tier for
-its (n, m) — the hybrid two-pass MXU pipeline for large jobs — so the
+Every row is one full run of the fastest available tier for its
+(n, m) — the hybrid two-pass matmul pipeline for large jobs — so the
 pan surface inherits the single-m performance work.  (SKIMP's
 bisection ORDERING, which exists to make partial CPU runs useful early,
 is deliberately not reproduced: on this stack each row is seconds, and

@@ -2,11 +2,11 @@
 
 The reference scales by replicating compute units on ONE board behind
 one host (CMakeLists.txt:120-125, host/MatrixProfileHost.cpp:78-137);
-its SURVEY-mapped TPU equivalent at pod scale spans *hosts*: each
-process owns a slice of the chips, processes rendezvous through JAX's
-coordination service, and the same sharded job scan runs over the
-process-spanning mesh with XLA inserting ICI collectives inside a slice
-and DCN transfers across slices.
+its multi-host equivalent spans *hosts*: each process owns a slice of
+the devices, processes rendezvous through JAX's coordination service,
+and the same sharded job scan runs over the process-spanning mesh with
+XLA inserting collectives inside a host and network transfers across
+hosts.
 
 mpx keeps the single-controller programming model: after
 ``initialize()``, ``jax.devices()`` is the GLOBAL device list, a 1-D
@@ -19,7 +19,7 @@ addressable shards and every process returns the full merged profile.
 Environment bootstrap (torchrun-style), used when no explicit arguments
 are given: ``MPX_COORDINATOR`` (host:port), ``MPX_NUM_PROCESSES``,
 ``MPX_PROCESS_ID``.  Single-process runs are a no-op — the module
-degrades to the plain ICI path.
+degrades to the plain single-host path.
 
 Untestable on real multi-host hardware in this environment; validated
 by a 2-process virtual-CPU-mesh dryrun (__graft_entry__.dryrun_multichip
@@ -51,7 +51,7 @@ def initialize(
     MPX_PROCESS_ID.  Returns True when running distributed, False for
     the single-process no-op.  Safe to call twice (idempotent)."""
     if is_initialized():
-        # Already live through ANY channel (jax env bootstrap, TPU/SLURM
+        # Already live through ANY channel (jax env bootstrap, SLURM
         # auto-detect, a direct jax.distributed.initialize) — report the
         # distributed runtime, not the env-var guard's view.
         return True

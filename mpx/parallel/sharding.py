@@ -3,7 +3,7 @@
 The reference replicates the kernel over N compute units, copies the full
 input to each unit's DDR bank, round-robins diagonal chunks onto the units,
 and merges partial aggregates on the host
-(host/MatrixProfileHost.cpp:78-137).  mpx does the TPU-native version:
+(host/MatrixProfileHost.cpp:78-137).  mpx does the JAX version:
 
 * the (band x chunk) job list is padded and split evenly over a 1-D mesh;
 * ``shard_map`` runs each device's private job scan (same compiled kernel
@@ -31,11 +31,10 @@ from mpx.parallel.mesh import default_mesh
 from mpx.types import Aggregates, JobGrid, Stats
 
 
-def _local_scan(stats, r0s, k0s, *, geom, dt, kernel, interpret, L):
+def _local_scan(stats, r0s, k0s, *, geom, dt, kernel, L):
     from mpx.driver import job_scan
 
-    return job_scan(stats, r0s, k0s, geom=geom, dt=dt, kernel=kernel,
-                    interpret=interpret, L=L)
+    return job_scan(stats, r0s, k0s, geom=geom, dt=dt, kernel=kernel, L=L)
 
 
 def _merge_stacked(agg_v: jax.Array, agg_i: jax.Array) -> Aggregates:
@@ -60,7 +59,6 @@ def run_jobs_sharded(
     w: int,
     kernel: str,
     dtype: str,
-    interpret: bool = False,
     tr: int = 8,
     tc: int = 2048,
     mesh=None,
@@ -92,7 +90,7 @@ def run_jobs_sharded(
         r0s, k0s = jnp.asarray(r0s), jnp.asarray(k0s)
 
     local = partial(
-        _local_scan, geom=geom, dt=dt, kernel=kernel, interpret=interpret, L=L
+        _local_scan, geom=geom, dt=dt, kernel=kernel, L=L
     )
 
     # shard_map outputs concatenate along the mapped axis; make the local

@@ -2,7 +2,7 @@
 
 The analog of the reference's OpenCL wrapper (include/host/OpenCL.hpp):
 where that wraps Xilinx device discovery, DDR-bank buffer placement,
-xclbin programming, and queue synchronization, the TPU equivalents are
+xclbin programming, and queue synchronization, the JAX equivalents are
 
 * device discovery            -> :func:`devices` / :class:`DeviceContext`
 * ``Buffer::CopyFromHost``    -> :meth:`DeviceContext.to_device`
@@ -12,7 +12,8 @@ xclbin programming, and queue synchronization, the TPU equivalents are
 * ``Context::Finish`` (ns)    -> :meth:`DeviceContext.finish`
 * compute-unit addressing     -> the mesh in :mod:`mpx.parallel.mesh`
 
-There is deliberately no buffer-bank management: XLA owns HBM placement.
+There is deliberately no buffer-bank management: XLA owns device memory
+placement.
 """
 
 from __future__ import annotations
@@ -28,53 +29,52 @@ from mpx.utils.logging import Logger
 
 _CACHE_ENABLED = False
 
+# The in-checkout cache directory used when JAX_COMPILATION_CACHE_DIR is
+# unset: a fixed path, because the path is part of the cache key.
+DEFAULT_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"
+)
+
 
 def _cpu_cache_suffix() -> str:
-    """Per-machine suffix for CPU-backend cache dirs.
+    """Per-machine subdirectory for CPU-backend caches.
 
     XLA:CPU persists AOT-compiled executables whose machine features are
     baked in at compile time; loading one on a host with different
-    features logs ``cpu_aot_loader`` errors and can SIGILL/segfault
-    (observed: flaky crashes in ``get_executable_and_time`` when this
-    container migrated hosts between sessions).  TPU executables are
-    device-keyed and safe to share, so only CPU runs get the suffix."""
+    features logs ``cpu_aot_loader`` errors and can SIGILL/segfault.
+    Accelerator executables are device-keyed, so only CPU runs get it."""
     try:
         import hashlib
 
         with open("/proc/cpuinfo") as f:
             flags = [ln for ln in f if ln.startswith("flags")]
         digest = hashlib.sha256(flags[0].encode()).hexdigest()[:8]
-        return f"-cpu-{digest}"
+        return f"cpu-{digest}"
     except Exception:
-        return "-cpu-unknown"
+        return "cpu-unknown"
 
 
-def enable_compilation_cache(path: Optional[str] = None):
+def compilation_cache_dir() -> str:
+    """Where compiled executables persist: ``JAX_COMPILATION_CACHE_DIR``
+    when set (and nothing else), otherwise ``DEFAULT_CACHE_DIR`` inside
+    the checkout — with a per-machine subdirectory on the CPU backend
+    only (see _cpu_cache_suffix)."""
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    if jax.default_backend() == "cpu":
+        return os.path.join(DEFAULT_CACHE_DIR, _cpu_cache_suffix())
+    return DEFAULT_CACHE_DIR
+
+
+def enable_compilation_cache():
     """Persist compiled executables across processes (the analog of
-    shipping a prebuilt xclbin instead of re-synthesizing).  Safe to call
-    repeatedly."""
+    shipping a prebuilt xclbin instead of re-synthesizing) in
+    :func:`compilation_cache_dir`.  Safe to call repeatedly."""
     global _CACHE_ENABLED
     if _CACHE_ENABLED:
         return
-    path = path or os.environ.get(
-        "MPX_COMPILE_CACHE", os.path.expanduser("~/.cache/mpx-jax")
-    )
-    # CPU backends get a per-machine cache dir (see _cpu_cache_suffix):
-    # explicit request, or no accelerator plugin registered at all (the
-    # silent fall-back-to-CPU path hits the same cross-host AOT hazard).
-    cpu_only = False
-    try:
-        from jax._src import xla_bridge
-
-        cpu_only = set(xla_bridge._backend_factories) == {"cpu"}
-    except Exception:
-        pass
-    if (
-        str(jax.config.jax_platforms or "").startswith("cpu")
-        or os.environ.get("MPX_PLATFORM", "").startswith("cpu")
-        or cpu_only
-    ):
-        path = path + _cpu_cache_suffix()
+    path = compilation_cache_dir()
     try:
         os.makedirs(path, exist_ok=True)
         jax.config.update("jax_compilation_cache_dir", path)

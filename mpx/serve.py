@@ -2,7 +2,7 @@
 
 The reference is a one-shot batch binary (host/MatrixProfileHost.cpp:
 54-160: load -> one kernel sequence -> store -> exit); production use
-of a TPU framework is the opposite shape — a long-lived process that
+of an accelerator framework is the opposite shape — a long-lived process that
 pays compilation once and then answers many requests against warm
 executables.  ``mpx serve`` reads one JSON request per line on stdin
 and writes one JSON response per line on stdout, so it composes with

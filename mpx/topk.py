@@ -303,7 +303,6 @@ def compute_topk_profile(
     if (
         dt == np.dtype(np.float64)
         and config.kernel in ("auto", "hybrid")
-        and not config.interpret
         and k <= 8
     ):
         from mpx.hybrid import compute_topk_profile_f64_hybrid

@@ -3,7 +3,7 @@
 The analog of the reference's kernel ABI packs
 (include/kernel/DataPacks.hpp:11-28, include/Config.hpp.in:61-73): instead of
 an array-of-structs ``InputDataPack{QT, df, dg, inv}`` per subsequence, mpx
-keeps four parallel vectors (TPU-friendly struct-of-arrays), plus the raw
+keeps four parallel vectors (device-friendly struct-of-arrays), plus the raw
 series and rolling means needed for exact QT band re-seeding.
 
 Aggregates (``OutputDataPack``'s ``aggregate_t{value, index}``) become a

@@ -19,8 +19,8 @@ class BenchmarkProfile:
     def __init__(self, echo: bool = False):
         # category -> OrderedDict(name -> ns)
         self._categories: "OrderedDict[str, OrderedDict[str, int]]" = OrderedDict()
-        #: print each push as it lands (long probe runs through the
-        #: relay get killed by timeouts; echo preserves partial data)
+        #: print each push as it lands (a long run killed by a timeout
+        #: still leaves its partial data)
         self.echo = echo
 
     def push(self, category: str, ns: int, name: str | None = None):

@@ -3,8 +3,8 @@
 round-2 item 9's criterion: n=2^20, 16 window sizes, >= 1.5x).
 
 The naive baseline is the sum of per-m single-profile walls.  Measuring
-all 16 m's directly costs ~16 relay compiles (minutes each), so the
-baseline is measured at 4 anchor m's (warm walls) and interpolated for
+all 16 m's directly costs 16 compiles, so the baseline is measured at 4
+anchor m's (warm walls) and interpolated for
 the rest with the measured cost model wall(m) ~= a*m + b — pass A is a
 matmul of volume prop. to m, everything else is ~constant; the fit is
 reported alongside the anchors so the extrapolation is auditable.

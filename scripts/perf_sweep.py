@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Tune (band, chunk, tile_rows) for the Pallas kernel on real hardware.
+"""Sweep the (band, chunk) job geometry of one kernel on the device.
 
 Usage: python scripts/perf_sweep.py [-n 262144] [-m 256]
 Prints pairs/sec for each configuration (compute phase only).

@@ -114,7 +114,7 @@ def test_aamp_rejects_ignored_knobs():
             m=16, num_shards=4))
     with pytest.raises(ValueError, match="one kernel"):
         compute_aamp_profile(T, 16, config=MatrixProfileConfig(
-            m=16, kernel="pallas"))
+            m=16, kernel="xla"))
 
 
 def test_mass_raw_profile():

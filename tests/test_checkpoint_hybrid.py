@@ -44,11 +44,9 @@ def _interrupting(kill_stage: str, after: int):
 
 @pytest.fixture()
 def small_groups(monkeypatch):
-    """Shrink the watchdog group budget so tiny test problems span
+    """Shrink the checkpoint group so tiny test problems span
     multiple pass-A groups and pass-B batches."""
-    import mpx.hybrid as hybrid
-
-    monkeypatch.setattr(hybrid, "_PASS_RATE", 10.0)
+    monkeypatch.setattr(HybridCheckpoint, "group_jobs", 64)
 
 
 @pytest.mark.parametrize("kill_stage,after", [("A", 2), ("B", 1)])
@@ -134,3 +132,27 @@ def test_hybrid_fingerprint_mismatch_restarts(tmp_path, small_groups):
     MP, MPI = compute_hybrid_with_checkpoint(T2, cfg, path)
     MP_exp, MPI_exp = compute_matrix_profile_reference(T2, 16)
     assert_profile_close(T2, 16, MP, MPI, MP_exp, MPI_exp, eps=1e-8)
+
+
+@pytest.mark.parametrize("stored", ["HIGH", None])
+def test_checkpoint_from_other_precision_refused(tmp_path, small_groups,
+                                                 stored):
+    """A checkpoint swept at HIGH (TF32 on the GPU, outside the margin)
+    — or one that predates the precision record, when HIGH was the
+    default — is refused with a clear message, never resumed."""
+    import mpx.checkpoint as C
+
+    T = random_walk(1500, seed=76)
+    cfg = MatrixProfileConfig(m=16, dtype="float64", band=64, chunk=64)
+    path = str(tmp_path / "old.npz")
+    with pytest.raises(_Killed):
+        compute_hybrid_with_checkpoint(
+            T, cfg, path, _ckpt_cls=_interrupting("A", 1)
+        )
+    data = dict(np.load(path, allow_pickle=False))
+    assert str(data.pop("precision")) == "HIGHEST"
+    if stored is not None:
+        data["precision"] = stored
+    C._save_npz(path, **data)
+    with pytest.raises(ValueError, match="precision HIGH"):
+        compute_hybrid_with_checkpoint(T, cfg, path)

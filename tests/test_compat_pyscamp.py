@@ -120,5 +120,7 @@ def test_matrix_modes_match_distmatrix():
 
 
 def test_device_queries():
-    assert psc.gpu_supported() is False
-    assert psc.tpu_supported() in (True, False)  # CPU test mesh: False
+    assert psc.gpu_supported() is False  # CPU test mesh
+    import jax
+
+    assert any(d.platform == "cpu" for d in jax.devices())

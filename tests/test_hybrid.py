@@ -258,33 +258,40 @@ def test_hybrid_ab_join_tie_heavy():
     np.testing.assert_allclose(res.mp_b, mpb, atol=1e-8, rtol=0)
 
 
-def test_hybrid_grouped_passes(monkeypatch):
-    """Forcing tiny dispatch groups (watchdog-safe splitting for n>1M)
-    must not change the result."""
+def test_hybrid_grouped_passes(monkeypatch, tmp_path):
+    """Splitting the passes into dispatch groups (the checkpointed
+    path's unit of work) must not change the result."""
     import mpx.hybrid as hybrid
+    from mpx.checkpoint import HybridCheckpoint, compute_hybrid_with_checkpoint
 
     T = random_walk(1024, seed=71)
     m = 16
     cfg = MatrixProfileConfig(m=m, dtype="float64", kernel="hybrid",
                               band=64, chunk=128, tile_rows=8, tile_cols=64)
     MP1, MPI1 = compute_matrix_profile_f64_hybrid(T, cfg)
-    monkeypatch.setattr(hybrid, "_PASS_RATE", 64 * 128 * 3 / 60.0)  # 3 jobs/group
-    MP2, MPI2 = compute_matrix_profile_f64_hybrid(T, cfg)
+    monkeypatch.setattr(HybridCheckpoint, "group_jobs", 64)
+    calls = []
+    real = hybrid._job_groups
+    monkeypatch.setattr(
+        hybrid, "_job_groups",
+        lambda *a, **k: calls.append(len(real(*a, **k))) or real(*a, **k),
+    )
+    MP2, MPI2 = compute_hybrid_with_checkpoint(
+        T, cfg, str(tmp_path / "g.npz")
+    )
+    assert max(calls) > 1  # the passes really ran in several groups
     np.testing.assert_array_equal(MP1, MP2)
     np.testing.assert_array_equal(MPI1, MPI2)
 
 
 def test_default_margin_scales_with_m():
-    # HIGHEST-precision base margin
-    assert default_margin(16, "HIGHEST") == pytest.approx(1e-4)
-    assert default_margin(256, "HIGHEST") == pytest.approx(1.024e-4)
-    assert default_margin(4096, "HIGHEST") == pytest.approx(4096 * 4e-7)
-    # non-HIGHEST sweeps add 4x the measured 3-pass truncation bound
-    assert default_margin(256, "HIGH") == pytest.approx(1.024e-4 + 8e-5)
-    # the module default matches the configured hybrid precision
+    # true-fp32 (HIGHEST) budget: a floor, then linear in m
+    assert default_margin(16) == pytest.approx(1e-4)
+    assert default_margin(256) == pytest.approx(1.024e-4)
+    assert default_margin(4096) == pytest.approx(4096 * 4e-7)
     from mpx.hybrid import HYBRID_PRECISION
 
-    assert default_margin(256) == default_margin(256, HYBRID_PRECISION)
+    assert HYBRID_PRECISION == "HIGHEST"
 
 
 def test_hybrid_small_fused_phase_and_staged_equivalence(monkeypatch):
